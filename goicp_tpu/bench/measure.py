@@ -1,7 +1,6 @@
-"""Inner benchmark measurement (run in a child process by bench.py).
+"""Benchmark measurement (called in-process by bench.py).
 
-Measures DISTINCT-pair registration throughput on TWO workloads — the
-honest forms of the headline number:
+Measures DISTINCT-pair registration throughput on TWO workloads:
 
   * similar: the two real BO1 golden pairs + synthetic rigid-subset
     pairs spanning the BO1 cavity size range (165-306 points);
@@ -9,10 +8,10 @@ honest forms of the headline number:
     with trimFraction (BASELINE.json config 4).
 
 Both run through the cross-pair fused stream (search/fused_stream.py) at
-the tuned round-3 shape, with golden parity and the convergence-margin
-guard asserted in-run.  Identical pairs would converge in lockstep and
-flatter the measurement; distinct pairs with distinct convergence
-behavior measure what a real sweep sees.
+the shared search shape (bench_shape), with golden parity and the
+convergence-margin guard asserted in-run.  Identical pairs would converge
+in lockstep and flatter the measurement; distinct pairs with distinct
+convergence behavior measure what a real sweep sees.
 
 Reports both BASELINE.json metrics:
   * pairs_per_s        — batch / wall (per workload)
@@ -20,11 +19,11 @@ Reports both BASELINE.json metrics:
     (each eval = one (node x Nd) DT-lookup + trim + ub/lb computation, the
     reference's InnerBnB per-node hot loop, jly_goicp.cpp:343-415)
 
-Writes one JSON object to the path given in argv[1].
+The golden pairs are read from the reference checkout at REF; making the
+inputs self-contained is ROADMAP A1.
 """
 
 import json
-import sys
 import time
 
 import numpy as np
@@ -33,26 +32,22 @@ REF = "/root/reference"
 BATCH = 64
 TRIM_BATCH = 32     # trimmed (dissimilar-style) workload size
 TRIM_FRACTION = 0.1  # BASELINE.json config 4 / READMEGo-ICP.md:82-84
-FUSED_WIDTH = 2     # fused-stream window (tools/fused_study.py, round 3:
-                    # 2 -> 30.8s, 3 -> 40.9s, 4 -> 68.8s, 8 -> 86.4s on
-                    # the 64-pair workload — the engine is kernel-volume-
-                    # bound, and 2 rows keep the sum of the other pairs'
-                    # sequential depth under the hardest pair's own)
+FUSED_WIDTH = 2     # fused-stream window (pairs in flight per stream)
 FUSED_CHUNK = 512   # global iterations per dispatch
+SIMILAR_BUCKETS = 4  # shape buckets of the similar pool
+TRIM_BUCKETS = 3     # shape buckets of the trimmed pool
+TRIM_CAPACITY = 256  # trimmed pool's translation frontier capacity
 
 
 def bench_shape(cfg):
-    """The tuned TPU search shape, shared by the bench, tools/sweep383.py
-    and the A/B tools (ONE source of truth; PERF.md holds the measurement
-    behind every choice here)."""
+    """The shared search shape of the bench, tools/sweep383.py and the A/B
+    tools (ONE source of truth).  It was tuned on earlier hardware and is
+    not yet re-tuned for the GPU (ROADMAP A3).
+
+    chem_reuse: corner reuse evaluates 19 of the 27 corner-lattice points
+    per pop at a bit-identical trajectory.  trans_capacity 128 for the
+    similar pool; the eval-heavier trimmed pool runs TRIM_CAPACITY."""
     import dataclasses
-    # chem_reuse: corner reuse cuts chem kernel volume to 19/27 at a
-    # bit-identical trajectory (pair-2 A/B: 2.479 -> 2.158 s, round 5).
-    # trans_capacity stays 128 for the similar pool: 256 wins on an
-    # eval-heavy straggler alone (pair-2 A/B 2.15 -> 1.868 s, -20% evals)
-    # but LOSES on the mixed 64-pair stream (2.51 -> 2.38 pairs/s —
-    # easy pairs pay the wider merge every iteration); the trimmed
-    # workload flips the other way (see main()).
     return dataclasses.replace(cfg, rot_batch=1, trans_capacity=128,
                                icp_seeds=4, max_outer_steps=12000,
                                margin_frac=0.9, chem_reuse=1)
@@ -80,7 +75,10 @@ def _synthetic_pair(rng):
     the reference binary consume these through their own (identical)
     centralize + common-scale + 6-sig-digit quantize paths, so the
     workload-baseline comparison (tools/ref_workload_baseline.py) solves
-    the very same normalized problem."""
+    the very same normalized problem.
+
+    Returns (data, model, data_prop_idx, model_prop_idx, truth) where
+    truth[i] is the model point that data point i was made from."""
     from goicp_tpu.geom.rotation import rodrigues_np
 
     nm = int(rng.integers(165, 307))
@@ -91,18 +89,21 @@ def _synthetic_pair(rng):
     sel = rng.permutation(nm)[:nd]
     data = (model[sel] - tv) @ R
     mp = rng.integers(0, 9, nm).astype(np.int32)
-    return (np.round(data, 6), np.round(model, 6),
-            mp[sel].copy(), mp)
+    model = np.round(model, 6)
+    return (np.round(data, 6), model, mp[sel].copy(), mp, model[sel])
 
 
-def synthetic_pool(n: int, seed: int = 7):
+def synthetic_pool(n: int, seed: int = 7, with_truth: bool = False):
     """The bench's synthetic raw pairs, reproducibly:
     [(name, data_raw f64 (Nd,3), model_raw f64 (Nm,3),
       data_prop_idx i32, model_prop_idx i32)].
+    with_truth=True appends each pair's ground truth: the model point
+    (raw coordinates) that each data point was made from.
     tools/ref_workload_baseline.py writes THESE clouds to .mol2 and runs
     the reference C++ binary on them — the same-workload comparator."""
     rng = np.random.default_rng(seed)
-    return [(f"syn{i:02d}",) + _synthetic_pair(rng) for i in range(n)]
+    pool = [(f"syn{i:02d}",) + _synthetic_pair(rng) for i in range(n)]
+    return pool if with_truth else [e[:5] for e in pool]
 
 
 def _synthetic_pair_noisy(rng):
@@ -142,7 +143,7 @@ def synthetic_pool_trimmed(n: int, seed: int = 23):
             for i in range(n)]
 
 
-def _normalized_synthetic(entry):
+def normalized_synthetic(entry):
     """Raw synthetic pair -> the normalized quantized clouds the engine
     registers (identical to what the reference binary computes from the
     same .mol2: centralize each, common scale, 6-sig-digit file round-trip
@@ -168,15 +169,12 @@ def _bucket_and_prepare(raw, cfg):
         for data, model, dp, mp in raw]
 
 
-def _bucket_and_prepare_multi(raw, cfg, max_buckets: int = 3):
-    """Shape-BUCKETED prep (round 5): pairs grouped by their own kernel
-    dims instead of one pool-max bucket — the hot kernels' work tile is
-    (pad_cells x ceil(pad_data, 128)) and a pool-max bucket wastes 1.8x
-    mean volume (2.7x on the eval-heavy pair 2).  One fused stream runs
-    per bucket; trajectories are padding-invariant so per-pair results
-    and eval counts are IDENTICAL to the single-bucket protocol
-    (tools/bucket_study.py checks this on-chip; measured 64-pair wall
-    34.5 -> 27.1 s).  Returns [(pairs, original_indices)]."""
+def bucket_and_prepare_multi(raw, cfg, max_buckets: int = 3):
+    """Shape-BUCKETED prep: pairs grouped by their own dims
+    (prepare.plan_buckets) instead of one pool-max bucket.  One fused
+    stream runs per bucket; trajectories are padding-invariant so per-pair
+    results and eval counts are IDENTICAL to the single-bucket protocol
+    (tests/test_bucketing.py).  Returns [(pairs, original_indices)]."""
     from goicp_tpu.pipeline.prepare import (bucket_dims, make_count_dynamic,
                                             plan_buckets, prepare_pair)
     dims_list = [bucket_dims(m, len(d), len(m), cfg) for d, m, _, _ in raw]
@@ -185,7 +183,7 @@ def _bucket_and_prepare_multi(raw, cfg, max_buckets: int = 3):
               for i in idxs], idxs) for bd, idxs in plan]
 
 
-def _reassemble(outs, n: int):
+def reassemble(outs, n: int):
     """[(original_indices, DeviceResult batch)] -> DeviceResult rows in
     original pair order (the per-bucket streams' inverse permutation)."""
     from goicp_tpu.search.device_engine import DeviceResult
@@ -201,7 +199,7 @@ def _reassemble(outs, n: int):
 def _similar_raw(cfg, n_total: int = BATCH):
     raw = [_load_real_pair("2x86_3", "1eq2_6", cfg),    # BO1 pair 1
            _load_real_pair("2ktd_1", "4imo_2", cfg)]    # BO1 pair 2
-    raw += [_normalized_synthetic(e)
+    raw += [normalized_synthetic(e)
             for e in synthetic_pool(n_total - len(raw))]
     return raw
 
@@ -215,7 +213,7 @@ def build_batch(cfg, n_total: int = BATCH):
 def build_batch_buckets(cfg, n_total: int = BATCH, max_buckets: int = 3):
     """The similar workload, shape-bucketed into up to max_buckets groups
     (see _bucket_and_prepare_multi) -> [(pairs, original_indices)]."""
-    return _bucket_and_prepare_multi(_similar_raw(cfg, n_total), cfg,
+    return bucket_and_prepare_multi(_similar_raw(cfg, n_total), cfg,
                                      max_buckets)
 
 
@@ -224,7 +222,7 @@ def build_trimmed_batch(cfg, n_total: int = TRIM_BATCH):
     pairs registered with trimFraction=TRIM_FRACTION (the reference's
     dissimilar-batch setting, bo1_GoICP.py:56-68 + READMEGo-ICP.md:82-84).
     cfg must already carry trimFraction=TRIM_FRACTION."""
-    raw = [_normalized_synthetic(e)
+    raw = [normalized_synthetic(e)
            for e in synthetic_pool_trimmed(n_total)]
     return _bucket_and_prepare(raw, cfg)
 
@@ -232,26 +230,17 @@ def build_trimmed_batch(cfg, n_total: int = TRIM_BATCH):
 def build_trimmed_batch_buckets(cfg, n_total: int = TRIM_BATCH,
                                 max_buckets: int = 3):
     """Trimmed workload, shape-bucketed -> [(pairs, original_indices)]."""
-    raw = [_normalized_synthetic(e)
+    raw = [normalized_synthetic(e)
            for e in synthetic_pool_trimmed(n_total)]
-    return _bucket_and_prepare_multi(raw, cfg, max_buckets)
+    return bucket_and_prepare_multi(raw, cfg, max_buckets)
 
 
-def _check_parity(out, cfg, batch_pairs):
-    """Golden parity on the real pairs inside the measured batch."""
-    err = np.asarray(out.error)
-    comp = np.asarray(out.opt_comp)
+def check_converged_with_margin(out, cfg, batch_pairs):
+    """Every pair converged, and (margin guard) every converged gap sits
+    at least (1 - margin_frac) below the reported epsilon, so a numeric
+    perturbation cannot flip a benched pair to unconverged."""
     conv = np.asarray(out.converged)
-    nd1 = batch_pairs[0].counts[0]
-    eps = cfg.MSEThresh * float(nd1)          # the reference's own epsilon
     assert bool(conv.all()), f"unconverged pairs: {np.where(~conv)[0]}"
-    assert abs(float(err[0]) - 8.45388) < eps, \
-        f"pair-1 parity failed: error={float(err[0])}"
-    # compat can flip by one correspondence across backends (f32 tie-breaks)
-    assert abs((int(nd1) - int(comp[0])) - 133) <= 2, int(comp[0])
-    # convergence-margin guard (VERDICT r2 weak #6): every converged gap
-    # must sit at least (1 - margin_frac) below the reported epsilon, so
-    # a numeric perturbation cannot flip a benched pair to unconverged
     if cfg.margin_frac < 1.0:
         gap = np.asarray(out.gap)
         for i, p in enumerate(batch_pairs):
@@ -264,129 +253,124 @@ def _check_parity(out, cfg, batch_pairs):
                 (i, float(gap[i]), eps_i)
 
 
-def main(out_path: str):
+def _check_parity(out, cfg, batch_pairs):
+    """Golden parity on the real pairs inside the measured batch, plus the
+    convergence-margin guard on every pair."""
+    err = np.asarray(out.error)
+    comp = np.asarray(out.opt_comp)
+    nd1 = batch_pairs[0].counts[0]
+    eps = cfg.MSEThresh * float(nd1)          # the reference's own epsilon
+    check_converged_with_margin(out, cfg, batch_pairs)
+    assert abs(float(err[0]) - 8.45388) < eps, \
+        f"pair-1 parity failed: error={float(err[0])}"
+    # compat can flip by one correspondence across backends (f32 tie-breaks)
+    assert abs((int(nd1) - int(comp[0])) - 133) <= 2, int(comp[0])
+
+
+def run_pool(buckets, cfg):
+    """One fused stream per shape bucket -> [(original_indices, result)]."""
+    from goicp_tpu.search.fused_stream import register_fused_stream
+    return [(idxs, register_fused_stream(bp, cfg, width=FUSED_WIDTH,
+                                         chunk_steps=FUSED_CHUNK))
+            for bp, idxs in buckets]
+
+
+def in_pool_order(buckets, n: int) -> list:
+    """Prepared pairs of a bucketed pool, in original pair order."""
+    ordered = [None] * n
+    for bp, idxs in buckets:
+        for j, i in enumerate(idxs):
+            ordered[i] = bp[j]
+    return ordered
+
+
+def measure() -> dict:
+    """Both workloads, warmed, best of 2 steady-state runs each."""
+    import dataclasses
+
     from goicp_tpu.config import GoICPConfig
-    import jax
 
-    platform = jax.devices()[0].platform
+    cfg = bench_shape(GoICPConfig.from_file(f"{REF}/config.txt"))
 
-    cfg = GoICPConfig.from_file(f"{REF}/config.txt")
-    # tuned search shape (strict parity: golden error band AND compat
-    # count on pair 1).  Measured on-chip: narrow pops win — a WIDE shape
-    # (rot_batch=6, trans_pop=32) cuts sequential depth ~20x but its
-    # per-iteration kernel/sort volume costs 2x more wall (351 s vs 171 s
-    # on the 64-pair stream); the engine is latency-bound at narrow shapes
-    # and volume-bound at wide ones, and narrow is the better trade here
-    # trans_capacity 128: the deeper translation frontier folds fewer
-    # dropped lbs into lb_safe, so rotation nodes carry TIGHTER bounds and
-    # the margin-guarded search converges in ~25% fewer outer steps
-    # (measured: 64-pair workload 61.8s at cap 64 -> 29.8s at cap 128)
-    cfg = bench_shape(cfg)
-
-    if platform == "cpu":
-        # no lane-level parallel hardware: sequential single-pair is the
-        # honest CPU fallback (batching just multiplies work per XLA op)
-        from goicp_tpu.pipeline.prepare import prepare_pair
-        from goicp_tpu.search.outer import register
-        data, model, dp, mp = _load_real_pair("2x86_3", "1eq2_6", cfg)
-        pair = prepare_pair(data, model, dp, mp, cfg, nd_downsampled=238,
-                            bucket=True)
-        eps = cfg.MSEThresh * 238
-        r = register(pair, cfg)           # warm-up + parity
-        assert abs(r.error - 8.45388) < eps
-        n = 3
+    buckets = build_batch_buckets(cfg, BATCH, max_buckets=SIMILAR_BUCKETS)
+    ordered_pairs = in_pool_order(buckets, BATCH)
+    out = reassemble(run_pool(buckets, cfg), BATCH)   # warm (compile)
+    _check_parity(out, cfg, ordered_pairs)
+    wall = float("inf")
+    evals = 0
+    for _ in range(2):
         t0 = time.time()
-        evals = 0
-        for _ in range(n):
-            r = register(pair, cfg)
-            evals += r.bound_evals
-            assert abs(r.error - 8.45388) < eps
-        wall = time.time() - t0
-        batch = n
-    else:
-        from goicp_tpu.search.fused_stream import register_fused_stream
-
-        def run():
-            # cross-pair fused stream, one per SHAPE BUCKET: every stream's
-            # while_loop advances its in-flight pairs by one inner-BnB
-            # iteration per step, outer transitions fire per pair
-            # asynchronously (round 3: fused width=2 beats wider windows —
-            # the engine is kernel-volume-bound); round 5 groups pairs by
-            # their own kernel dims (plan_buckets) instead of one pool-max
-            # bucket — identical per-pair trajectories, 1.8x mean kernel
-            # volume removed (64-pair wall 34.5 -> 27.1 s on-chip A/B,
-            # tools/bucket_study.py)
-            return [(idxs, register_fused_stream(bp, cfg, width=FUSED_WIDTH,
-                                                 chunk_steps=FUSED_CHUNK))
-                    for bp, idxs in buckets]
-
-        # 4 buckets measured best on the 64-pair similar pool (best-of-2
-        # walls: 4 buckets 22.9 s vs 3 buckets 27.1 s vs single 34.5 s;
-        # trimmed showed no 4-vs-3 gain, so it stays at 3)
-        buckets = build_batch_buckets(cfg, BATCH, max_buckets=4)
-        ordered_pairs = [None] * BATCH
-        for bp, idxs in buckets:
-            for j, i in enumerate(idxs):
-                ordered_pairs[i] = bp[j]
-        out = _reassemble(run(), BATCH)            # warm (compile) + check
+        outs = run_pool(buckets, cfg)
+        w = time.time() - t0
+        out = reassemble(outs, BATCH)
+        if w < wall:
+            wall = w
+            evals = int(np.sum(np.asarray(out.evals)))
         _check_parity(out, cfg, ordered_pairs)
-        wall = float("inf")
-        evals = 0
-        for _ in range(2):                         # steady-state: best of 2
-            t0 = time.time()
-            outs = run()
-            w = time.time() - t0
-            out = _reassemble(outs, BATCH)
-            if w < wall:
-                wall = w
-                evals = int(np.sum(np.asarray(out.evals)))
-            _check_parity(out, cfg, ordered_pairs)
-        batch = BATCH
 
-    result = {"pairs_per_s": batch / wall,
-              "bound_evals_per_s": evals / wall,
-              "platform": platform, "wall_s": wall, "batch": batch,
-              # distinct_pairs: the CPU fallback registers ONE distinct
-              # pair (repeated), so bench.py must not compare it against
-              # the 64-pair mixed-workload baseline (ADVICE r2)
-              "distinct_pairs": 1 if platform == "cpu" else batch}
+    # second workload: trimmed dissimilar-style (BASELINE.json config 4),
+    # noisy/outlier pairs registered with trimFraction
+    cfg_t = dataclasses.replace(cfg, trimFraction=TRIM_FRACTION,
+                                trans_capacity=TRIM_CAPACITY)
+    tbuckets = build_trimmed_batch_buckets(cfg_t, TRIM_BATCH, TRIM_BUCKETS)
+    run_pool(tbuckets, cfg_t)                          # warm
+    twall = float("inf")
+    for _ in range(2):
+        t0 = time.time()
+        touts = run_pool(tbuckets, cfg_t)
+        twall = min(twall, time.time() - t0)
+        tout = reassemble(touts, TRIM_BATCH)
+        conv = np.asarray(tout.converged)
+        assert conv.all(), f"unconverged trimmed pairs: {np.where(~conv)[0]}"
 
-    if platform != "cpu":
-        # second workload: trimmed dissimilar-style (BASELINE.json config
-        # 4) — noisy/outlier pairs registered with trimFraction, the
-        # reference's dissimilar-batch setting
-        import dataclasses as _dc
-        # trimmed pool runs deeper frontiers: measured round 5 on-chip,
-        # cap 256 + reuse = 4.16 pairs/s vs 3.86 at cap 128 (the noisy
-        # pairs are eval-heavier, so the 256-frontier's tighter lbs win
-        # where the similar pool's easy pairs lose to merge cost)
-        cfg_t = _dc.replace(cfg, trimFraction=TRIM_FRACTION,
-                            trans_capacity=256)
-        tbuckets = build_trimmed_batch_buckets(cfg_t, TRIM_BATCH)
-
-        def trun():
-            return [(idxs, register_fused_stream(bp, cfg_t,
-                                                 width=FUSED_WIDTH,
-                                                 chunk_steps=FUSED_CHUNK))
-                    for bp, idxs in tbuckets]
-
-        trun()                                     # warm
-        twall = float("inf")
-        for _ in range(2):                         # steady-state: best of 2
-            t0 = time.time()
-            touts = trun()
-            twall = min(twall, time.time() - t0)
-            tout = _reassemble(touts, TRIM_BATCH)
-            conv = np.asarray(tout.converged)
-            assert conv.all(), \
-                f"unconverged trimmed pairs: {np.where(~conv)[0]}"
-        result["trimmed_pairs_per_s"] = TRIM_BATCH / twall
-        result["trimmed_batch"] = TRIM_BATCH
-        result["trimmed_wall_s"] = twall
-
-    with open(out_path, "w") as fh:
-        json.dump(result, fh)
+    return {"pairs_per_s": BATCH / wall, "bound_evals_per_s": evals / wall,
+            "wall_s": wall, "batch": BATCH,
+            "trimmed_pairs_per_s": TRIM_BATCH / twall,
+            "trimmed_batch": TRIM_BATCH, "trimmed_wall_s": twall}
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    print(json.dumps(measure()))
+
+
+def demo_scale_clouds(seed: int, n_model: int = 35947, n_data: int = 1000):
+    """A demo-scale plain registration problem (the Stanford bunny demo's
+    sizes: a 35,947-point model, a 1,000-point data cloud), generated.
+
+    The model is a seeded animal-like surface: points on five ellipsoids
+    (body, head, two ears, tail) at jittered places, normalized into
+    [-0.9, 0.9]^3 like the demo's clouds.  It has no rotational symmetry,
+    so a wrong pose leaves many points far from the surface and the
+    epsilon-optimal registration is the true one.  The data cloud is a
+    rigid transform of n_data model points, rotated by 2.0-2.8 rad.
+    Returns (model (Nm,3), data (Nd,3), truth (Nd,3)) where truth[i] is
+    the model point data[i] was made from."""
+    from goicp_tpu.geom.rotation import rodrigues_np
+
+    rng = np.random.default_rng(seed)
+    # (center, radii) of body, head, ears, tail
+    lobes = np.array([
+        [0.00, 0.00, 0.00, 0.50, 0.35, 0.30],
+        [0.45, 0.25, 0.10, 0.22, 0.20, 0.20],
+        [0.50, 0.55, 0.20, 0.06, 0.20, 0.05],
+        [0.36, 0.55, -0.05, 0.06, 0.18, 0.05],
+        [-0.52, 0.05, -0.10, 0.10, 0.10, 0.10],
+    ])
+    lobes = lobes * rng.uniform(0.9, 1.1, lobes.shape)
+    area = np.prod(lobes[:, 3:], axis=1) ** (2.0 / 3.0)
+    which = rng.choice(len(lobes), n_model, p=area / area.sum())
+    u = rng.uniform(-1.0, 1.0, n_model)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n_model)
+    s = np.sqrt(1.0 - u * u)
+    dirs = np.stack([s * np.cos(phi), s * np.sin(phi), u], axis=1)
+    model = lobes[which, :3] + dirs * lobes[which, 3:]
+    model += rng.normal(0.0, 0.002, model.shape)
+    model -= (model.min(0) + model.max(0)) / 2.0
+    model *= 0.9 / np.abs(model).max()
+    # a large rotation: ICP from the identity alone does not find it
+    axis = rng.normal(size=3)
+    R = rodrigues_np(axis / np.linalg.norm(axis) * rng.uniform(2.0, 2.8))
+    tv = rng.uniform(-0.2, 0.2, 3)
+    truth = model[rng.permutation(n_model)[:n_data]]
+    data = (truth - tv) @ R
+    return model, data, truth

@@ -5,59 +5,44 @@ for ONE translation subcube at a time, a per-point weighted DT lookup, trim,
 and the upper/lower bound sums; chem corner terms come from 8 per-corner
 whole-cloud passes with memo caches (:429-550).
 
-TPU-first design: evaluate (lanes x nodes x points) in one shot —
+Batched design: evaluate (lanes x nodes x points) in one shot —
   pos   = rotated_points[lane] + center[lane, node]          (broadcast add)
-  dis   = weights * DT-gather(pos)                           (VPU gathers)
+  dis   = weights * DT-gather(pos)                           (gathers)
   minDis= clamp(dis - rot_uncertainty[lane], 0)
   trim  = top_k smallest per node
   ub    = sum f(minDis);  lb = sum f(clamp(minDis - sqrt(3)/2 w, 0))
 and chem corner terms as gathers of precomputed (point x cell) tables over
 the 27-point corner lattice shared by a parent's 8 children (the batched
-equivalent of the reference's memoization).
+equivalent of the reference's memoization).  Everything is plain jnp/lax;
+XLA fuses the gathers, trims and sums.
 """
 
 from __future__ import annotations
 
-import os
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from goicp_tpu.config import GoICPConfig
-from goicp_tpu.grid.lookup import dt_distance, nearest_cell_id
+from goicp_tpu.grid.lookup import (dt_distance, flat_index, nearest_cell_id,
+                                   voxel_indices)
 from goicp_tpu.pipeline.prepare import PairData
 
 SQRT3 = float(np.sqrt(3.0))
+# jax.named_scope of every bound evaluation: a profiler trace attributes
+# device time to it (utils/profiling.summarize_trace)
+BOUND_SCOPE = "bound_eval"
 
 
-def _pallas_mode() -> str:
-    """GOICP_KERNEL env: auto (pallas on TPU when exact), pallas, xla."""
-    return os.environ.get("GOICP_KERNEL", "auto")
+def _bound_scope(fn):
+    @functools.wraps(fn)
+    def scoped(*args, **kwargs):
+        with jax.named_scope(BOUND_SCOPE):
+            return fn(*args, **kwargs)
+    return scoped
 
-
-def _c_pad(pair: PairData) -> int:
-    return max(-(-pair.grid.cell_coords.shape[0] // 8) * 8, 8)
-
-
-def _use_pallas(pair: PairData, cfg: GoICPConfig,
-                which: str = "geom") -> bool:
-    """Route the bound evaluation to the Pallas MXU kernels?  Decided at
-    trace time; the kernels match the XLA gather path within their support
-    envelopes (see bounds/pallas_eval.py; untrimmed geometric sums are
-    bit-equal).  The geometric kernel (no argmin identity needed) has a
-    wider envelope than the keyed chem kernel.  Trimming is handled
-    in-kernel (bit-bisection K-smallest selection)."""
-    mode = _pallas_mode()
-    if mode == "xla":
-        return False
-    from goicp_tpu.bounds import pallas_eval
-    gate = (pallas_eval.supports_geom if which == "geom"
-            else pallas_eval.supports)
-    ok = gate(pair.grid.geom.size, _c_pad(pair), cfg.norm)
-    if mode == "pallas":
-        return ok
-    return ok and jax.default_backend() == "tpu"
 
 # child j has corners c at lattice position (jx+cx, jy+cy, jz+cz) in the
 # 3x3x3 corner lattice of its parent (offsets in units of child width)
@@ -103,6 +88,7 @@ def _sorted_trim(vals: jnp.ndarray, mask: jnp.ndarray, k: jnp.ndarray):
     return jnp.where(keep, vs, 0.0)
 
 
+@_bound_scope
 def geometric_bounds(pair: PairData, cfg: GoICPConfig,
                      pts_rot: jnp.ndarray, centers: jnp.ndarray,
                      widths: jnp.ndarray, rot_uncertainty: jnp.ndarray | None):
@@ -110,15 +96,6 @@ def geometric_bounds(pair: PairData, cfg: GoICPConfig,
     rot_uncertainty (L, Nd) or None -> (ub (L,B), lb (L,B)).
     """
     trim = _trim_mode(pair, cfg)
-    if _use_pallas(pair, cfg):
-        from goicp_tpu.bounds.pallas_eval import geometric_bounds_kernel
-        return geometric_bounds_kernel(
-            pts_rot, centers, widths, rot_uncertainty, pair.weights,
-            pair.grid.cell_coords, pair.grid.consts,
-            size=pair.grid.geom.size, norm=cfg.norm,
-            trim_k=pair.inlier_num if trim == "static" else 0,
-            trim_count=pair.inlier_f() if trim == "dynamic" else None,
-            interpret=jax.default_backend() != "tpu")
     pos = pts_rot[:, None, :, :] + centers[:, :, None, :]   # (L,B,Nd,3)
     dis = pair.weights[None, None, :] * dt_distance(
         pos, pair.grid.dist, pair.grid.consts)              # (L,B,Nd)
@@ -152,6 +129,7 @@ def geometric_bounds(pair: PairData, cfg: GoICPConfig,
     return ub, lb
 
 
+@_bound_scope
 def geometric_bounds_fused(pair: PairData, cfg: GoICPConfig,
                            pts_rot: jnp.ndarray, centers: jnp.ndarray,
                            widths: jnp.ndarray, rot_uncertainty: jnp.ndarray):
@@ -166,15 +144,6 @@ def geometric_bounds_fused(pair: PairData, cfg: GoICPConfig,
     -> three (L,B) arrays.
     """
     trim = _trim_mode(pair, cfg)
-    if _use_pallas(pair, cfg):
-        from goicp_tpu.bounds.pallas_eval import geometric_bounds_kernel
-        return geometric_bounds_kernel(
-            pts_rot, centers, widths, rot_uncertainty, pair.weights,
-            pair.grid.cell_coords, pair.grid.consts,
-            size=pair.grid.geom.size, norm=cfg.norm, fused=True,
-            trim_k=pair.inlier_num if trim == "static" else 0,
-            trim_count=pair.inlier_f() if trim == "dynamic" else None,
-            interpret=jax.default_backend() != "tpu")
     pos = pts_rot[:, None, :, :] + centers[:, :, None, :]   # (L,B,Nd,3)
     dis = pair.weights[None, None, :] * dt_distance(
         pos, pair.grid.dist, pair.grid.consts)              # (L,B,Nd)
@@ -203,6 +172,7 @@ def geometric_bounds_fused(pair: PairData, cfg: GoICPConfig,
             jnp.sum(lb_d, axis=-1))
 
 
+@_bound_scope
 def chem_corner_values(pair: PairData, cfg: GoICPConfig,
                        pts_rot: jnp.ndarray, corners: jnp.ndarray):
     """Per-corner chem sums.  pts_rot (L, Nd, 3); corners (L, Q, 3) ->
@@ -212,22 +182,9 @@ def chem_corner_values(pair: PairData, cfg: GoICPConfig,
     1697) and compareNeighbors BnB path (:1261-1287), all through the
     nearest-occupied-cell of the clamped voxel.
     """
-    from goicp_tpu.grid.lookup import flat_index, voxel_indices
-    only_incomp = (cfg.regularization > 0
-                   and not (cfg.regularizationFPFH > 0 and cfg.cfpfh != 0)
-                   and cfg.regularizationNeighbors <= 0)
-    if only_incomp and _use_pallas(pair, cfg, which="chem"):
-        from goicp_tpu.bounds.pallas_eval import chem_incomp_kernel
-        return {"incomp": chem_incomp_kernel(
-            pts_rot, corners, pair.cell_compat, pair.prop_onehot,
-            pair.data_mask, pair.grid.cell_coords, pair.grid.consts,
-            size=pair.grid.geom.size,
-            interpret=jax.default_backend() != "tpu")}
     pos = pts_rot[:, None, :, :] + corners[:, :, None, :]   # (L,Q,Nd,3)
-    # NOTE: all (point, column) table lookups are FLAT 1D gathers
-    # (row-stride arithmetic) rather than 2D advanced indexing — the 1D
-    # gather lowering is both faster and avoids a sporadic TPU-worker
-    # kernel fault observed with multi-dimensional gathers on v5e.
+    # all (point, column) table lookups are FLAT 1D gathers (row-stride
+    # arithmetic) rather than 2D advanced indexing
     nd_idx = jnp.arange(pair.n_data_padded)[None, None, :]
     out = {}
     if pair.fused_chem:

@@ -4,7 +4,7 @@ The reference encodes 9 atom-name-derived properties as RGB-ish integer codes
 (transformation.hpp:36) and maps mol2 atom names onto them with a fallback to
 OG for unknown names (transformation.cpp:18-47).
 
-TPU-side we use dense small indices 0..8 (`prop_index`); the raw codes are
+On the device we use dense small indices 0..8 (`prop_index`); the raw codes are
 kept for file I/O parity (normalized .xyz files store the raw code).
 """
 

@@ -53,7 +53,7 @@ def main(argv=None):
     d.add_argument("--config", default=None)
     d.add_argument("--output", default="output.txt")
     d.add_argument("--engine", choices=["host", "device"],
-                   default="device")   # 0.58 s vs 12.365 s reference
+                   default="device")
     d.add_argument("-q", "--quiet", action="store_true")
 
     args = ap.parse_args(argv)

@@ -1,10 +1,10 @@
-"""Configuration for the Go-ICP TPU engine.
+"""Configuration for the Go-ICP registration engine.
 
 Keeps the reference's config keys with identical names and defaults so a
 reference `config.txt` drives a parity run unchanged
 (reference: jly_main.cpp:231-270, ConfigMap.cpp, config.txt).
 
-Extra keys (absent from the reference) control the TPU search shape: batch
+Extra keys (absent from the reference) control the search shape: batch
 sizes, frontier capacities, iteration caps.  They only affect speed / pruning
 efficiency, never epsilon-optimality: lower bounds of nodes dropped by
 capacity are folded back into the reported bound (see search/inner.py).
@@ -14,6 +14,15 @@ from __future__ import annotations
 
 import dataclasses
 import re
+
+
+# the keys of the reference's config.txt, in its order (jly_main.cpp:231-270)
+REFERENCE_KEYS = ("MSEThresh", "norm", "regularization",
+                  "regularizationNeighbors", "ponderation", "cfpfh",
+                  "regularizationFPFH", "rotMinX", "rotMinY", "rotMinZ",
+                  "rotWidth", "transMinX", "transMinY", "transMinZ",
+                  "transWidth", "trimFraction", "distTransSize",
+                  "distTransExpandFactor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +47,7 @@ class GoICPConfig:
     distTransSize: int = 20
     distTransExpandFactor: float = 2.0
 
-    # ---- TPU search shape (new; no reference equivalent) ----
+    # ---- search shape (new; no reference equivalent) ----
     rot_batch: int = 8           # rotation cubes popped per outer step
     trans_capacity: int = 128    # translation frontier width per rotation lane
     trans_pop: int = 8           # translation nodes expanded per inner iteration
@@ -71,22 +80,6 @@ class GoICPConfig:
     fused_inner: int = 1         # 1 = one fused inner search per outer step
                                  # (ub+lb from a single DT lookup; halves the
                                  # bound work at identical epsilon guarantees)
-    packed_slots: int = 8        # packed cross-pair stream: lanes served
-                                 # per global iteration (the kernel-volume
-                                 # budget; search/packed_stream.py picks
-                                 # the least-advanced live lanes across
-                                 # every in-flight pair)
-    packed_trans_every: int = 8  # packed stream: outer-step transitions
-                                 # (harvest/ICP/adopt/pop) fire only every
-                                 # K global iterations — completed inner
-                                 # phases idle briefly while OTHER pairs'
-                                 # lanes use the slots, amortizing the
-                                 # transition block at wide windows; when
-                                 # live lanes can no longer fill the slots
-                                 # transitions fire every iteration, so a
-                                 # lone straggler pays no extra latency.
-                                 # Trajectories are unchanged (deferral
-                                 # does not alter any pair's own search)
     lane_compaction: int = 1     # 1 = staged inner-lane compaction
                                  # (L -> L/2 -> L/4): done lanes are gathered
                                  # out of the evaluated batch; bit-identical
@@ -97,8 +90,8 @@ class GoICPConfig:
                                  # from K-1 fixed coarse rotations (vmapped
                                  # — one ICP latency total) and adopts the
                                  # best.  A tighter first incumbent prunes
-                                 # superlinearly (measured round 4: better
-                                 # incumbents collapse outer steps); purely
+                                 # superlinearly (better incumbents
+                                 # collapse outer steps); purely
                                  # an incumbent improvement, epsilon-
                                  # optimality and final quality unchanged
     chem_reuse: int = 0          # 1 = corner reuse: every frontier node
@@ -119,7 +112,7 @@ class GoICPConfig:
                                  # per-translation memo caches
                                  # (jly_goicp.h:99-109).  Ignored under
                                  # chem_survivors (two-phase) mode.
-    trans_slots: int = 0         # fused/packed stream: serve at most K
+    trans_slots: int = 0         # fused stream: serve at most K
                                  # transitioning pairs per outer-transition
                                  # event (gather K rows -> transition ->
                                  # scatter back) instead of running the
@@ -176,6 +169,17 @@ class GoICPConfig:
         assert self.distTransSize >= 2
         assert 0.0 <= self.trimFraction < 1.0
         return self
+
+    def to_file(self, path: str) -> None:
+        """Write a reference-style config.txt: every reference key, then
+        each extra (search-shape) key whose value is not its default, so
+        from_file(path) returns this config."""
+        extra = [f.name for f in dataclasses.fields(self)
+                 if f.name not in REFERENCE_KEYS
+                 and getattr(self, f.name) != f.default]
+        with open(path, "w") as fh:
+            for k in REFERENCE_KEYS + tuple(extra):
+                fh.write(f"{k}={getattr(self, k)}\n")
 
     @classmethod
     def from_file(cls, path: str) -> "GoICPConfig":

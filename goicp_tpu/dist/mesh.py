@@ -2,11 +2,11 @@
 
 The reference has NO parallelism of any kind (SURVEY.md section 2.4): one
 process, one core, one pair at a time; its only scaling is a Python for-loop
-over the 383 BO1 pairs.  Here parallelism is first-class and TPU-native:
+over the 383 BO1 pairs.  Here parallelism is first-class:
 
   * `data` mesh axis — pair-level data parallelism: independent
-    registrations run on different devices (the TPU analogue of the sweep
-    loop, but simultaneous).
+    registrations run on different devices (the sweep loop, but
+    simultaneous).
   * `search` mesh axis — intra-pair search parallelism: the L rotation
     lanes of one outer step (8 children x rot_batch popped cubes) shard
     across devices; each device runs the inner translation BnB for its lane
@@ -15,7 +15,9 @@ over the 383 BO1 pairs.  Here parallelism is first-class and TPU-native:
     of SURVEY.md section 2.4 item 3.
 
 Both are expressed with jax.sharding + NamedSharding over one Mesh; XLA
-inserts the collectives (ICI within a slice).
+inserts the collectives.  The mesh follows the algorithm, not a wiring
+diagram: the four GPUs of one host are all-to-all over NVLink, so any
+(data, search) factorization of them is equally well connected.
 """
 
 from __future__ import annotations
@@ -35,14 +37,13 @@ from goicp_tpu.search.inner import inner_bnb
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Multi-host (pod / multi-slice) initialization.
+    """Multi-process initialization.
 
-    Call once per host before any jax usage; afterwards `jax.devices()`
-    spans the whole pod and `make_mesh` lays `data`×`search` over it — the
-    intra-slice axes ride ICI, cross-slice traffic rides DCN.  On Cloud TPU
-    the arguments auto-detect from the metadata server (pass nothing); on
-    other clusters pass them explicitly.  The reference has no distributed
-    runtime at all (SURVEY.md §2.4)."""
+    Call once per process before any jax usage; afterwards `jax.devices()`
+    spans every process and `make_mesh` lays `data`×`search` over them.
+    Pass the coordinator address (`host:port`), process count and this
+    process's id: nothing in a plain GPU cluster lets JAX discover them.
+    The reference has no distributed runtime at all (SURVEY.md §2.4)."""
     import jax
     kwargs = {}
     if coordinator_address is not None:

@@ -10,9 +10,11 @@ Reference behavior being re-designed (not ported):
   * Voxelization: ROUND(x) = int(x + 0.5) — C truncation toward zero
     (jly_3ddt.cpp:30).
 
-TPU-first design: the EDT is computed EXACTLY as a blocked
+Batched design: the EDT is computed EXACTLY as a blocked
 distance-matrix argmin between all SIZE^3 voxel centers and the occupied
-voxel centers — |v - s|^2 = |v|^2 - 2 v.s + |s|^2 rides the MXU, and the
+voxel centers — |v - s|^2 = |v|^2 - 2 v.s + |s|^2 is one float32 matmul
+per block (HIGHEST precision: squared voxel distances are integers that
+a reduced-precision product would round), and the
 argmin gives the nearest occupied cell for free (subsuming the reference's
 cellPoints/emptyCells recovery, exactly).  Distances differ from the
 reference only where its 14-mask propagation is off-by-a-voxel; ours is a
@@ -190,7 +192,7 @@ def _edt_fields(cell_coords: jnp.ndarray, size: int):
             best_d, best_i = carry
             s = jax.lax.dynamic_slice(seeds, (c_start, 0), (_CELL_CHUNK, 3))
             sn = jax.lax.dynamic_slice(c_norm, (c_start,), (_CELL_CHUNK,))
-            # (B, CC) squared distances via MXU
+            # (B, CC) squared distances via one matmul
             cross = jnp.dot(v, s.T, preferred_element_type=jnp.float32,
                             precision=jax.lax.Precision.HIGHEST)
             d2 = v_norm[:, None] - 2.0 * cross + sn[None, :]

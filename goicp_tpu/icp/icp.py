@@ -6,8 +6,8 @@ Kabsch via SVD with det correction, compose, iterate until
 err - err_new < err_diff * num (err = sum of squared NN distances over the
 kept pairs) or max_iter.
 
-TPU-first design: the kd-tree NN search becomes a brute-force squared
-distance matrix on the MXU (|x|^2 + |y|^2 - 2 x.y, argmin over model) —
+Batched design: the kd-tree NN search becomes a brute-force squared
+distance matrix (|x|^2 + |y|^2 - 2 x.y as one matmul, argmin over model) —
 exact NN, no tree, and at Nd,Nm <= a few thousand it is faster than any
 tree walk.  Trimming uses top_k.  The loop is a lax.while_loop so a whole
 ICP run is one XLA computation.
@@ -27,6 +27,11 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+# every float32 product on the search path is exact float32: a reduced-
+# precision default (TF32 on tensor cores) moves the errors that the
+# convergence and epsilon-band checks read
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 class ICPResult(NamedTuple):
     R: jnp.ndarray          # (3, 3)
@@ -38,9 +43,9 @@ class ICPResult(NamedTuple):
 
 def nn_correspondences(points: jnp.ndarray, model: jnp.ndarray):
     """points (N,3) x model (M,3) -> (nn_idx (N,), sq_dist (N,)). Exact 1-NN
-    via MXU distance matrix."""
+    via a distance-matrix matmul."""
     cross = jnp.dot(points, model.T, preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)
+                    precision=_HIGHEST)
     d2 = (jnp.sum(points * points, axis=1)[:, None]
           - 2.0 * cross + jnp.sum(model * model, axis=1)[None, :])
     idx = jnp.argmin(d2, axis=1).astype(jnp.int32)
@@ -53,12 +58,11 @@ def _jacobi_svd3(H: jnp.ndarray, sweeps: int = 6):
     H = U diag(sigma) V^T with V a proper rotation (product of Givens
     rotations, det +1), sigma >= 0 (unsorted), U's columns orthonormal.
 
-    Why not jnp.linalg.svd: the TPU lowering of the general SVD costs
-    ~320 us PER CALL even at 3x3 (measured on v5e — ~100 tiny unfused
-    ops), and ICP runs one per sequential iteration; this closed-form
-    Jacobi is ~60 fully-fusable elementwise ops.  Six sweeps is double
-    the f32 convergence requirement for 3x3 (Jacobi is quadratically
-    convergent; 3 sweeps already reach ~1e-7)."""
+    Why not jnp.linalg.svd: the general SVD lowers to a library call or
+    ~100 tiny unfused ops, and ICP runs one per sequential iteration;
+    this closed-form Jacobi is ~60 fully-fusable elementwise ops.  Six
+    sweeps is double the f32 convergence requirement for 3x3 (Jacobi is
+    quadratically convergent; 3 sweeps already reach ~1e-7)."""
     A = H
     V = jnp.broadcast_to(jnp.eye(3, dtype=H.dtype), H.shape)
 
@@ -136,7 +140,7 @@ def kabsch(q_d: jnp.ndarray, q_m: jnp.ndarray, w: jnp.ndarray | None = None):
     if w is not None:
         q_d = q_d * w[:, None]
     H = jnp.dot(q_d.T, q_m, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)  # (3,3)
+                precision=_HIGHEST)                   # (3,3)
     return kabsch_from_H(H)
 
 
@@ -156,14 +160,15 @@ def kabsch_from_H(H: jnp.ndarray) -> jnp.ndarray:
         U, sigma, V = _jacobi_svd3(Hn)
     def _det3(M):
         return jnp.einsum("...i,...i->...", M[..., 0, :],
-                          jnp.cross(M[..., 1, :], M[..., 2, :]))
+                          jnp.cross(M[..., 1, :], M[..., 2, :]),
+                          precision=_HIGHEST)
 
     det = _det3(V) * _det3(U)          # det(V U^T), both orthonormal
     # fold the det sign into the smallest singular direction
     small = jnp.argmin(sigma, axis=-1)
     d = jnp.where(jnp.arange(3) == small[..., None],
                   det[..., None], 1.0)                    # (..., 3)
-    R = jnp.einsum("...ik,...k,...jk->...ij", V, d, U)
+    R = jnp.einsum("...ik,...k,...jk->...ij", V, d, U, precision=_HIGHEST)
     return jnp.where(hmax > 0, R,
                      jnp.broadcast_to(jnp.eye(3, dtype=H.dtype), R.shape))
 
@@ -202,7 +207,7 @@ def icp_run(data: jnp.ndarray, model: jnp.ndarray, R0: jnp.ndarray,
 
     def body(state):
         R, t, err, _, _, it, _ = state
-        pts = data @ R.T + t[None, :]
+        pts = jnp.matmul(data, R.T, precision=_HIGHEST) + t[None, :]
         nn_idx, d2 = nn_correspondences(pts, model)
         if data_mask is not None:
             d2 = jnp.where(data_mask > 0, d2, 1.0e12)
@@ -228,9 +233,11 @@ def icp_run(data: jnp.ndarray, model: jnp.ndarray, R0: jnp.ndarray,
         mu_m = jnp.sum(m_corr * mask[:, None], axis=0) / cnt
         R_ = kabsch((pts - mu_d) * mask[:, None],
                     (m_corr - mu_m) * mask[:, None])
-        t_ = mu_m - R_ @ mu_d
-        R_next = jnp.where(converged, R, R_ @ R)
-        t_next = jnp.where(converged, t, R_ @ t + t_)
+        t_ = mu_m - jnp.matmul(R_, mu_d, precision=_HIGHEST)
+        R_next = jnp.where(converged, R,
+                           jnp.matmul(R_, R, precision=_HIGHEST))
+        t_next = jnp.where(converged, t,
+                           jnp.matmul(R_, t, precision=_HIGHEST) + t_)
         return (R_next, t_next, err_new, nn_idx, d2, it + 1, converged)
 
     def cond(state):

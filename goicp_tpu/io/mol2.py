@@ -8,13 +8,17 @@ Host-side numpy I/O. Behavior mirrors the reference's token-stream readers:
   * applyTransformationProtein (transformation.cpp:469-539): rewrite the ATOM
     block coordinates of a protein mol2 with a rigid transform, preserving all
     other lines.
+  * write_mol2: a minimal cavity file in the layout of the reference's
+    checked-in cavities, for generated inputs.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from goicp_tpu.chem.properties import RMSD_PROPS, string_to_prop
+from goicp_tpu.chem.properties import PROP_NAMES, RMSD_PROPS, string_to_prop
 
 
 def read_mol_file(path: str):
@@ -103,3 +107,26 @@ def apply_transform_protein(protein_path: str, out_path: str,
             out_lines.append("\t".join(tok[:9]))
     with open(out_path, "w") as fh:
         fh.write("\n".join(out_lines) + "\n")
+
+
+def write_mol2(path: str, coords: np.ndarray, prop_idx: np.ndarray) -> None:
+    """Minimal .mol2 that both this package's readers and the reference
+    parser (transformation.cpp:282-306) read like the checked-in cavity
+    files: header lines with the atom count on line 6 (mol2_atom_count),
+    an @<TRIPOS>ATOM block whose atom names carry the properties (dense
+    indices into PROP_NAMES), then a trailing section whose first
+    non-numeric token ends the reference's parse."""
+    name = os.path.basename(path)
+    with open(path, "w") as fh:
+        fh.write("#    Name: %s\n#\n\n@<TRIPOS>MOLECULE\n%s\n" % (name, name))
+        fh.write("  %d     0     1     0     0\nPROTEIN\nNO_CHARGES\n\n\n"
+                 % len(coords))
+        fh.write("@<TRIPOS>ATOM\n")
+        for i, (p, c) in enumerate(zip(coords, prop_idx)):
+            fh.write("%7d %-8s %10.6f %10.6f %10.6f %-8s %3d %-8s %8.4f \n"
+                     % (i + 1, PROP_NAMES[int(c)], p[0], p[1], p[2],
+                        "X.0", 1, "SYN1", 0.0))
+        fh.write("@<TRIPOS>SUBSTRUCTURE\n")
+        fh.write("     1 CUB1        1 GROUP        1 X    CUB  0     "
+                 "**** CUB X 1\n")
+        fh.write("@<TRIPOS>SET\n")

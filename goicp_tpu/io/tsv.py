@@ -18,3 +18,11 @@ def read_pair_list(path: str):
             tok = line.split()
             pairs.append((tok[2], tok[3]))
     return pairs
+
+
+def write_pair_list(path: str, pairs) -> None:
+    """Write (source_cavity_id, target_cavity_id) pairs as BO1-style rows;
+    the columns the sweep does not read carry placeholders."""
+    with open(path, "w") as fh:
+        for src, tgt in pairs:
+            fh.write(f"U{src}\tU{tgt}\t{src}\t{tgt}\t1.0\tfamily\tcluster\n")

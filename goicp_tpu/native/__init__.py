@@ -1,7 +1,8 @@
 """ctypes bindings for the native host runtime (libgoicp_host.so).
 
-Builds lazily on first use (`make -C goicp_tpu/native`); every binding has a
-pure-Python fallback so the package works without a toolchain.
+Builds lazily on first use (`make -C goicp_tpu/native`), and again whenever
+the library is older than its sources; every binding has a pure-Python
+fallback so the package works without a toolchain.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _LIB_PATH = os.path.join(_DIR, "libgoicp_host.so")
+_SOURCES = ("frontier.cpp", "parsers.cpp", "Makefile")
 _lib = None
 _tried = False
 
@@ -23,7 +25,7 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
+    if _stale():
         try:
             subprocess.run(["make", "-C", _DIR], check=True,
                            capture_output=True, timeout=120)
@@ -59,6 +61,16 @@ def _load():
     lib.parse_float_table.argtypes = [ctypes.c_char_p, ctypes.c_int64, f64p]
     _lib = lib
     return lib
+
+
+def _stale() -> bool:
+    """Missing, or older than any of its sources (a library copied from
+    another checkout or built by an older Makefile is rebuilt)."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    built = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(os.path.join(_DIR, f)) > built
+               for f in _SOURCES)
 
 
 def available() -> bool:

@@ -1,6 +1,6 @@
 // Host-side rotation-cube frontier: a batched min-heap.
 //
-// The TPU engine keeps the outer BnB frontier on the host (the device does
+// The host-streaming engine keeps the outer BnB frontier on the host (the device does
 // the batched bound evaluation; see search/outer.py).  This is the native
 // equivalent of the reference's priority_queue<ROTNODE> (jly_goicp.cpp:592)
 // re-designed for batched access: pop_batch() extracts the K lowest-lb

@@ -1,6 +1,6 @@
-"""Batched multi-pair registration: N pairs' BnB searches share the chip.
+"""Batched multi-pair registration: N pairs' BnB searches share the device.
 
-RETIRED as a standalone engine (VERDICT r3 next-6): the round-2
+RETIRED as a standalone engine: the round-2
 host-coordinated slot machinery this module used to implement (per-slot
 Python state, stacked per-step dispatches) is superseded by the
 cross-pair fused stream (search/fused_stream.py), which runs the same

@@ -5,7 +5,7 @@ the fully device-side engine then leaves most of the chip idle between tiny
 programs.  Here the sweep's runnable pairs are padded into one shared shape
 bucket, their REAL point counts moved into a device leaf
 (prepare.make_count_dynamic), and registered in chunks of `batch_size` as
-ONE vmapped XLA program each — the single-chip measured form of pair-level
+ONE vmapped XLA program each — the single-device form of pair-level
 data parallelism (SURVEY.md §2.4 item 1).  Trimmed configs (the
 outlier-robust dissimilar-batch setting) work too: per-pair inlier counts
 ride in the dynamic-counts device leaf.
@@ -77,12 +77,11 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
     if not runnable:
         return []
 
-    # ---- phase 2 (host): SHAPE BUCKETS over the sweep (round 5): pairs
-    # grouped by their own kernel dims (plan_buckets) instead of one
-    # pool-max bucket — the hot kernels are volume-bound on the
-    # (pad_cells x pad_data) work tile, and pool-max padding measured 1.8x
-    # mean wasted volume; trajectories are padding-invariant so results
-    # are identical (tests/test_bucketing.py, tools/bucket_study.py) ----
+    # ---- phase 2 (host): SHAPE BUCKETS over the sweep: pairs grouped by
+    # their own dims (plan_buckets) instead of one pool-max bucket, so a
+    # small pair does not pay the largest pair's padding; trajectories
+    # are padding-invariant so results are identical
+    # (tests/test_bucketing.py) ----
     from goicp_tpu.pipeline.prepare import plan_buckets
     dims_list = []
     for _, _, _, inputs, n_ds, _ in runnable:
@@ -126,8 +125,8 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
         t0 = time.time()
         if runner == "fused":
             # width must be a multiple of the mesh data-axis size (the
-            # fused stream shards the window's pair axis over it); the
-            # single-chip optimum is 2 (tools/fused_study.py, round 3)
+            # fused stream shards the window's pair axis over it); 2 is
+            # the bench's FUSED_WIDTH
             fw = 2 if mesh is None else max(2, mesh.shape["data"])
             if mesh is not None:
                 d = mesh.shape["data"]

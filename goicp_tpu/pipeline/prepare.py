@@ -48,12 +48,6 @@ class PairData:
     grid: Grid
     compat_table: jnp.ndarray  # (Nd, C) bool
     fpfh_table: jnp.ndarray    # (Nd, C) f32
-    cell_compat: jnp.ndarray   # (C, 9) f32 0/1 rank factor: cell j
-                               # compatible-with-property-k (uniform cell:
-                               # compat-matrix column of its color; mixed
-                               # cell: its property bitmask) —
-                               # compat_table == prop_onehot @ cell_compat.T
-    prop_onehot: jnp.ndarray   # (Nd, 9) f32 one-hot of data_props x mask
     norm_data: jnp.ndarray     # (Nd,) f32 point norms (rot uncertainty)
     comp_voxel: jnp.ndarray    # (Nd, S^3) bool fused chem table, or (0,0)
     fpfh_voxel: jnp.ndarray    # (Nd, S^3) f32 fused chem table, or (0,0)
@@ -69,8 +63,7 @@ class PairData:
         children = (self.data, self.model, self.weights, self.data_props,
                     self.model_props, self.data_nbrs, self.model_nbrs,
                     self.data_fpfh, self.model_fpfh, self.grid,
-                    self.compat_table, self.fpfh_table, self.cell_compat,
-                    self.prop_onehot, self.norm_data,
+                    self.compat_table, self.fpfh_table, self.norm_data,
                     self.comp_voxel, self.fpfh_voxel, self.data_mask,
                     self.counts)
         return children, (self.inlier_num, self.n_data, self.n_model,
@@ -109,8 +102,7 @@ def make_count_dynamic(pair: PairData) -> PairData:
 
     Trimming works too: the per-pair inlier count rides in `counts[1]` and
     every selection switches from static top_k to an exact rank-mask over
-    sorted values (bounds/evaluate.py, icp/icp.py) or a traced-k in-kernel
-    bisection select (bounds/pallas_eval.py)."""
+    sorted values (bounds/evaluate.py, icp/icp.py)."""
     return dataclasses.replace(
         pair, dynamic_counts=True,
         inlier_num=pair.n_data_padded, n_data=pair.n_data_padded,
@@ -130,15 +122,6 @@ def _chem_tables(grid: Grid, data_props: jnp.ndarray,
     comp_mixed = ((mask[None, :] >> data_props[:, None]) & 1) == 1
     compat_table = jnp.where(uniform[None, :], comp_uniform, comp_mixed)
 
-    # exact rank-9 factorization of the same table (compat_table ==
-    # prop_onehot @ cell_compat.T): lets the Pallas chem kernel ride the
-    # incompatibility bit INSIDE its key matmul as 9 extra 0/1 columns
-    # instead of adding a materialized (C, Nd) VMEM tile (pallas_eval)
-    ks = jnp.arange(9)
-    hu = compat[:, jnp.clip(color, 0)].T                          # (C, 9)
-    hm = ((mask[:, None] >> ks[None, :]) & 1) == 1                # (C, 9)
-    cell_compat = jnp.where(uniform[:, None], hu, hm).astype(jnp.float32)
-
     # fpfh_table: min over cell points of L1 descriptor distance
     K = grid.cell_points.shape[1]
 
@@ -155,7 +138,7 @@ def _chem_tables(grid: Grid, data_props: jnp.ndarray,
     fpfh_table, _ = jax.lax.scan(scan_k, init,
                                  jnp.arange(K, dtype=jnp.int32))
     # cells with no points (padding) keep +inf; real lookups never hit them
-    return compat_table, fpfh_table, cell_compat
+    return compat_table, fpfh_table
 
 
 def bucket_dims(target: np.ndarray, nd: int, nm: int,
@@ -188,13 +171,13 @@ def plan_buckets(dims_list: list[dict], max_buckets: int = 3,
     bucket's shared compiled program pays dims close to its own pairs'
     needs instead of the pool max.
 
-    Why: the hot kernels' work tile is (pad_cells x ceil(pad_data, lane))
-    (bounds/pallas_eval.py) and bound evaluation is volume-bound on it
-    (PERF.md); one pool-wide bucket pads EVERY pair to the pool max —
-    measured 1.8x mean wasted kernel volume on the bench pool (2.7x on
-    the eval-heavy straggler pair).  Search trajectories are padding-
-    invariant (padded points carry zero weight/mask), so bucketing only
-    changes speed, never results.
+    Why: one pool-wide bucket pads EVERY pair to the pool max, and the
+    padded work is paid on every bound evaluation.  The volume model
+    (pad_cells x ceil(pad_data, lane)) is the work tile of an earlier
+    DT-as-matmul kernel; the gather path's work scales with pad_data
+    alone, so re-fitting it to the GPU is open (ROADMAP A3).  Search
+    trajectories are padding-invariant (padded points carry zero
+    weight/mask), so bucketing only changes speed, never results.
 
     dims_list: per-pair bucket_dims() dicts.  Returns [(bucket_dims,
     indices)] where bucket_dims is the elementwise max over the bucket's
@@ -317,7 +300,7 @@ def prepare_pair(source: np.ndarray, target: np.ndarray,
         tf = np.vstack([tf, np.zeros((nmp - nm, tf.shape[1]), np.float32)])
 
     compat = jnp.asarray(compatibility_matrix())
-    compat_table, fpfh_table, cell_compat = _chem_tables(
+    compat_table, fpfh_table = _chem_tables(
         grid, jnp.asarray(sp), jnp.asarray(sf), jnp.asarray(tf), compat)
     if ndp > nd:
         # padded data rows: always-compatible, zero descriptor distance, so
@@ -325,9 +308,6 @@ def prepare_pair(source: np.ndarray, target: np.ndarray,
         mask_col = jnp.asarray(data_mask[:, None] > 0)
         compat_table = jnp.where(mask_col, compat_table, True)
         fpfh_table = jnp.where(mask_col, fpfh_table, 0.0)
-    # masked one-hot: padded points contribute inc = mask - sum == 0
-    prop_onehot = (jnp.asarray(sp)[:, None] == jnp.arange(9)[None, :]
-                   ).astype(jnp.float32) * jnp.asarray(data_mask)[:, None]
 
     # fused per-(point, voxel) chem tables: one gather instead of
     # voxel -> nearest-cell -> (point, cell) table; worth the memory only on
@@ -356,7 +336,6 @@ def prepare_pair(source: np.ndarray, target: np.ndarray,
         data_nbrs=jnp.asarray(data_nbrs), model_nbrs=jnp.asarray(model_nbrs),
         data_fpfh=jnp.asarray(sf), model_fpfh=jnp.asarray(tf),
         grid=grid, compat_table=compat_table, fpfh_table=fpfh_table,
-        cell_compat=cell_compat, prop_onehot=prop_onehot,
         norm_data=jnp.linalg.norm(jnp.asarray(src), axis=1)
         * jnp.asarray(data_mask),
         comp_voxel=comp_voxel, fpfh_voxel=fpfh_voxel,

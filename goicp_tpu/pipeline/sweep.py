@@ -1,4 +1,4 @@
-"""BO1 dataset sweep (the TPU equivalent of bo1_GoICP.py).
+"""BO1 dataset sweep (the equivalent of bo1_GoICP.py).
 
 Reference behavior (bo1_GoICP.py:40-68): for every pair (source, target)
 from the similar/dissimilar TSVs, run

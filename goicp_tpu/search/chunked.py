@@ -198,7 +198,7 @@ def register_device_batch_compact(pairs, cfg: GoICPConfig,
 
 def register_device_stream(pairs, cfg: GoICPConfig, width: int = 8,
                            chunk_steps: int = 32):
-    """Round-2 lockstep stream, RETIRED as an engine (VERDICT r3 next-6):
+    """Round-2 lockstep stream, RETIRED as an engine:
     now a thin adapter over the cross-pair fused stream
     (search/fused_stream.register_fused_stream), which supersedes it —
     same continuous-batching window/refill contract and per-pair results

@@ -4,7 +4,7 @@ Reference: GoICP::InnerBnB (jly_goicp.cpp:286-579) — best-first priority
 queue over translation subcubes, one node at a time, with memoized chem
 corner terms.
 
-TPU-first re-design (not a port):
+Batched re-design (not a port):
   * L rotation lanes (the 8 children of each popped rotation batch) run
     their inner searches SIMULTANEOUSLY as a leading batch axis;
   * each lane's priority queue becomes a fixed-capacity frontier tensor;
@@ -239,12 +239,12 @@ def _merge_sorted_keep(rest_lbs, rest_nodes, new_lbs, new_nodes, cap: int):
     sorted-frontier invariant) with an UNSORTED new-children block (B
     slots), keeping the `cap` lowest-lb entries.
 
-    Replaces the full argsort over R+B keys (the per-iteration glue cost
-    called out in VERDICT r4 next-3; the reference analogue being beaten
+    Replaces the full argsort over R+B keys (a per-iteration glue cost;
+    the reference analogue being beaten
     is the priority_queue push/pop, jly_goicp.cpp:293-320) with
       * one argsort of the B-wide children block only, and
       * cross ranks from ONE (R, B) pairwise comparison matrix — pure
-        VPU elementwise work, no multi-pass sort over the long axis.
+        elementwise work, no multi-pass sort over the long axis.
     The output order is IDENTICAL to jnp.argsort(concat([rest, new]))'s
     stable order (ties: rest before children, children by original index).
     NaNs are ranked as +inf (exactly where a total-order sort puts them)

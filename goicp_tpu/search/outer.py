@@ -5,7 +5,7 @@ queue over rotation subcubes; per popped cube: Rodrigues, rotate the cloud,
 InnerBnB twice (ub with zero rotation uncertainty, lb with maxRotDis), ICP
 on improvement, prune the queue.
 
-TPU-first re-design: the host keeps the rotation frontier (a cheap heap) and
+Batched re-design: the host keeps the rotation frontier (a cheap heap) and
 pops `rot_batch` cubes at once; their 8-fold expansions become L =
 8*rot_batch lanes evaluated in ONE device program per pass (rotate-all +
 lane-batched inner BnB, see search/inner.py).  Improvements are then adopted

@@ -172,7 +172,7 @@ def register_device_sharded(pair: PairData, cfg: GoICPConfig, mesh,
                 g_pre = jax.lax.all_gather(pre, AXIS).reshape(-1)
                 tau = jnp.sort(g_pre)[n * Pr - 1]
                 # near exhaustion the (n*Pr)-th union entry is INF and
-                # every pop would count as 'good' (ADVICE r4): only
+                # every pop would count as 'good': only
                 # accumulate while the union has n*Pr finite lbs
                 ok = jnp.sum(jnp.isfinite(g_pre)) >= n * Pr
                 good = jnp.where(ok, jnp.sum((pop_lb <= tau) & expand), 0)

@@ -1,12 +1,11 @@
 """Shape-bucketed pool planning (pipeline.prepare.plan_buckets) and the
 bucketed fused streams' equality with the single pool-max bucket.
 
-The hot kernels' work tile is (pad_cells x ceil(pad_data, 128)); a single
-pool-max bucket pads every pair to the pool max (measured 1.8x mean wasted
-kernel volume on the bench pool).  Bucketing only changes padding, and
-every bound/trim/chem/ICP path is padding-invariant, so per-pair results
-and eval counts must be IDENTICAL (the on-chip study
-tools/bucket_study.py verifies the same at bench scale).
+A single pool-max bucket pads every pair to the pool max, and the padded
+work is paid on every bound evaluation.  Bucketing only changes padding,
+and every bound/trim/chem/ICP path is padding-invariant, so per-pair
+results and eval counts must be IDENTICAL (tools/bucket_study.py checks
+the same at bench scale).
 """
 
 import numpy as np

@@ -49,22 +49,6 @@ def test_reuse_multi_term_and_trimmed():
     _assert_same(r0, r1)
 
 
-def test_packed_stream_reuse_matches_device():
-    from goicp_tpu.search.packed_stream import register_packed_stream
-    cfg = _cfg(MSEThresh=0.01, regularization=0.0005, ponderation=1,
-               distTransSize=16, rot_batch=1, trans_pop=2,
-               trans_capacity=32, chem_reuse=1, packed_slots=8)
-    pairs = []
-    for s in (3, 5):
-        p, *_ = _pair(cfg, seed=s, pad=True)
-        pairs.append(p)
-    out = register_packed_stream(pairs, cfg, width=2, chunk_steps=64)
-    for i, p in enumerate(pairs):
-        single = jax.device_get(register_device(p, cfg))
-        assert float(np.asarray(out.error)[i]) == float(single.error)
-        assert int(np.asarray(out.evals)[i]) == int(single.evals)
-
-
 def test_fused_stream_reuse_matches_device():
     from goicp_tpu.search.fused_stream import register_fused_stream
     cfg = _cfg(MSEThresh=0.01, regularization=0.0005, ponderation=1,

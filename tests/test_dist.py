@@ -1,6 +1,7 @@
 """Mesh sharding: pair-DP + rotation-subtree (search) sharding on the
 virtual 8-device CPU mesh; determinism across mesh layouts."""
 
+import os
 import sys
 
 import numpy as np
@@ -8,7 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 from goicp_tpu.config import GoICPConfig
 from goicp_tpu.dist.mesh import make_mesh, sharded_inner_step, stack_pairs

@@ -1,11 +1,12 @@
-"""I/O parsers vs the reference's checked-in data files (goldens)."""
+"""I/O parsers on a seeded reference-style data tree, and vs the
+reference's golden outputs where its data checkout is present."""
 
 import os
 
 import numpy as np
 import pytest
 
-from goicp_tpu.chem.properties import PROP_CODES
+from goicp_tpu.chem.properties import PROP_NAMES, PROP_CODES
 from goicp_tpu.geom.normalize import normalize_pair
 from goicp_tpu.io.cfpfh import cfpfh_path_for_cavity, read_cfpfh
 from goicp_tpu.io.mol2 import get_atom_block, mol2_atom_count, read_mol_file
@@ -14,20 +15,23 @@ from goicp_tpu.io.tsv import read_pair_list
 from goicp_tpu.io.xyz import quantize_like_file, read_point_cloud
 
 
-def test_read_mol_file_counts(ref_dir):
-    coords, props = read_mol_file(f"{ref_dir}/cavities/2x86_3_cavity6.mol2")
+def test_read_mol_file_counts(data_tree):
+    root, truth = data_tree
+    coords, props = read_mol_file(f"{root}/cavities/2x86_3_cavity6.mol2")
+    t_coords, t_props, _ = truth["2x86_3"]
     assert coords.shape == (238, 3)
     assert props.shape == (238,)
-    assert props[0] == PROP_CODES["OG"]
-    np.testing.assert_allclose(coords[0], [52.0792, -11.0646, 96.3486])
+    assert props[0] == PROP_CODES[PROP_NAMES[t_props[0]]]
+    np.testing.assert_allclose(coords, t_coords, atol=5e-7)
 
-    coords2, _ = read_mol_file(f"{ref_dir}/cavities/1eq2_6_cavity6.mol2")
+    coords2, _ = read_mol_file(f"{root}/cavities/1eq2_6_cavity6.mol2")
     assert coords2.shape[0] == 306
 
 
-def test_mol2_atom_count(ref_dir):
-    assert mol2_atom_count(f"{ref_dir}/cavities/2x86_3_cavity6.mol2") == 238
-    assert mol2_atom_count(f"{ref_dir}/cavities/1eq2_6_cavity6.mol2") == 306
+def test_mol2_atom_count(data_tree):
+    root, _ = data_tree
+    assert mol2_atom_count(f"{root}/cavities/2x86_3_cavity6.mol2") == 238
+    assert mol2_atom_count(f"{root}/cavities/1eq2_6_cavity6.mol2") == 306
 
 
 def test_normalization_matches_reference_golden(ref_dir):
@@ -61,24 +65,28 @@ def test_read_output_golden(ref_dir):
     np.testing.assert_allclose(out["t"], [-0.0423267, 0.0181080, -0.0010259])
 
 
-def test_read_pair_list(ref_dir):
-    pairs = read_pair_list(f"{ref_dir}/cavities_similar_BO1_clean.tsv")
-    assert len(pairs) == 383
+def test_read_pair_list(data_tree):
+    from tests.conftest import TREE_PAIRS
+    root, _ = data_tree
+    pairs = read_pair_list(f"{root}/cavities_similar_BO1_clean.tsv")
+    assert len(pairs) == TREE_PAIRS
     assert pairs[0] == ("2x86_3", "1eq2_6")
-    dis = read_pair_list(f"{ref_dir}/cavities_dissimilar_BO1_clean.tsv")
-    assert len(dis) == 383
+    dis = read_pair_list(f"{root}/cavities_dissimilar_BO1_clean.tsv")
+    assert len(dis) == TREE_PAIRS
 
 
-def test_cfpfh(ref_dir):
-    path = cfpfh_path_for_cavity(f"{ref_dir}/cfpfh",
+def test_cfpfh(data_tree):
+    root, truth = data_tree
+    path = cfpfh_path_for_cavity(f"{root}/cfpfh",
                                  "cavitiesN/2x86_3_cavity6_sim1N.xyz")
     assert os.path.basename(path) == "2x86_3_cavity6.cfpfh"
     desc = read_cfpfh(path)
     assert desc.shape == (238, 41)
-    assert desc[0, 0] == pytest.approx(49.01564635578058)
+    np.testing.assert_allclose(desc, truth["2x86_3"][2], rtol=1e-12)
 
 
-def test_get_atom_block(ref_dir):
-    pts = get_atom_block(f"{ref_dir}/chains/2x86_3_protein.mol2")
-    assert pts.ndim == 2 and pts.shape[1] == 3
-    assert len(pts) > 100
+def test_get_atom_block(data_tree):
+    root, truth = data_tree
+    pts = get_atom_block(f"{root}/chains/2x86_3_protein.mol2")
+    # the fixture writes a backbone atom (N, CA, C, O) every 4th row
+    np.testing.assert_allclose(pts, truth["2x86_3"][0][::4], atol=5e-7)

@@ -7,12 +7,14 @@ from goicp_tpu.pipeline.visualize import plot_registration
 from goicp_tpu.utils.profiling import PhaseTimers
 
 
-def test_read_config_mol_file(ref_dir):
+def test_read_config_mol_file(data_tree):
+    from tests.conftest import TREE_PAIRS
+    root, _ = data_tree
     cavities = read_config_mol_file(
-        f"{ref_dir}/cavities_similar_BO1_clean.tsv")
+        f"{root}/cavities_similar_BO1_clean.tsv")
     assert cavities[0] == "2x86_3_cavity6.mol2"
     assert cavities[1] == "1eq2_6_cavity6.mol2"
-    assert len(cavities) == 2 * 383
+    assert len(cavities) == 2 * TREE_PAIRS
 
 
 def test_read_pcd_file(tmp_path):

@@ -49,21 +49,23 @@ def test_frontier_capacity_drop_accounting():
         np.testing.assert_allclose(got, np.arange(10), rtol=1e-6)
 
 
-def test_native_mol2_parser_matches_python(ref_dir):
-    path = f"{ref_dir}/cavities/2x86_3_cavity6.mol2"
+def test_native_mol2_parser_matches_python(data_tree):
+    root, _ = data_tree
+    path = f"{root}/cavities/2x86_3_cavity6.mol2"
     res = native.parse_mol2_atoms(path)
     assert res is not None
     coords, names = res
     py_coords, py_props = read_mol_file(path)
-    assert coords.shape == py_coords.shape
+    assert coords.shape == py_coords.shape == (238, 3)
     np.testing.assert_allclose(coords, py_coords)
     from goicp_tpu.chem.properties import string_to_prop
     np.testing.assert_array_equal(
         np.array([string_to_prop(n) for n in names]), py_props)
 
 
-def test_native_float_table(ref_dir):
-    path = f"{ref_dir}/cfpfh/2x86_3_cavity6.cfpfh"
+def test_native_float_table(data_tree):
+    root, _ = data_tree
+    path = f"{root}/cfpfh/2x86_3_cavity6.cfpfh"
     vals = native.parse_float_table(path, 238 * 41 + 10)
     assert vals is not None
     assert len(vals) == 238 * 41

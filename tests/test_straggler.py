@@ -1,10 +1,9 @@
 """Straggler handoff: a drained fused window's lone in-flight pair moves
 to rotation-lane sharding over the mesh's `search` axis
-(fused_stream.straggler_to_lane_sharded, VERDICT r4 next-7), and the
-icp_seeds large-model crash guard refuses cleanly."""
+(fused_stream.straggler_to_lane_sharded), and multi-seed ICP on a
+large model."""
 
 import numpy as np
-import pytest
 import jax
 import jax.numpy as jnp
 
@@ -61,14 +60,29 @@ def test_fused_stream_with_search_axis_mesh():
                    - float(single.error)) <= eps + 1e-5
 
 
-def test_icp_seeds_large_model_guard(monkeypatch):
+def test_icp_seeds_large_model_best_of_seeds():
+    """Multi-seed ICP over a model larger than a cavity (4,200 points)
+    runs on every backend and adopts the lowest-error seed."""
+    from goicp_tpu.geom.rotation import rodrigues
+    from goicp_tpu.pipeline.prepare import prepare_pair
     from goicp_tpu.search import device_engine as de
-    cfg = _cfg(icp_seeds=4)
-    pair, *_ = _pair(cfg, seed=1)
-    # pretend the backend is TPU and the model exceeds the envelope
-    monkeypatch.setattr(de, "_ICP_SEEDS_MODEL_MAX", 8)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="icp_seeds"):
-        de._icp_best_of_seeds(pair, cfg,
-                              jnp.broadcast_to(jnp.eye(3), (8, 3, 3)),
-                              jnp.zeros((8, 4)), jnp.zeros(8))
+    kw = dict(regularization=0.0, ponderation=0, distTransSize=12,
+              icp_max_iter=10)
+    rng = np.random.default_rng(11)
+    model = rng.uniform(-0.7, 0.7, size=(4200, 3))
+    data = model[:40] + 0.01
+    pair = prepare_pair(data, model, np.zeros(40, np.int32),
+                        np.zeros(4200, np.int32), _cfg(**kw))
+    rv = np.zeros((8, 3), np.float32)
+    rv[:, 0] = 0.3 * np.arange(8)
+    R_lanes = rodrigues(jnp.asarray(rv))
+    nodes = jnp.zeros((8, 4))
+    ubs = jnp.arange(8, dtype=jnp.float32)      # lanes 0..3 are the seeds
+    *_, sc, _ = jax.device_get(de._icp_best_of_seeds(
+        pair, _cfg(icp_seeds=4, **kw), R_lanes, nodes, ubs))
+    assert np.isfinite(float(sc.error))
+    for i in range(4):
+        *_, sc1, _ = jax.device_get(de._icp_best_of_seeds(
+            pair, _cfg(icp_seeds=1, **kw), R_lanes[i:i + 1],
+            nodes[i:i + 1], ubs[i:i + 1]))
+        assert float(sc.error) <= float(sc1.error) + 1e-6

@@ -1,5 +1,5 @@
-"""Slot-gathered outer transitions (cfg.trans_slots, VERDICT r4 next-4):
-the fused/packed streams serve at most K transitioning pairs per event
+"""Slot-gathered outer transitions (cfg.trans_slots):
+the fused stream serves at most K transitioning pairs per event
 (gather K rows -> vmapped harvest/ICP/advance -> scatter) instead of
 paying the block at full window width.  A pair past the K budget waits
 with its completed (idempotent) inner state, so each pair's OWN pop
@@ -53,16 +53,3 @@ def test_fused_slotted_equals_unslotted():
                                   np.asarray(o1.evals))
     np.testing.assert_array_equal(np.asarray(o0.opt_comp),
                                   np.asarray(o1.opt_comp))
-
-
-def test_packed_slotted_matches_device():
-    from goicp_tpu.search.packed_stream import register_packed_stream
-    cfg = _cfg(MSEThresh=0.01, regularization=0.0005, ponderation=1,
-               distTransSize=16, rot_batch=1, trans_pop=2,
-               trans_capacity=32, trans_slots=2, packed_slots=8)
-    pairs = _pairs(cfg)
-    out = register_packed_stream(pairs, cfg, width=4, chunk_steps=64)
-    for i, p in enumerate(pairs):
-        single = jax.device_get(register_device(p, cfg))
-        assert float(np.asarray(out.error)[i]) == float(single.error)
-        assert int(np.asarray(out.evals)[i]) == int(single.evals)

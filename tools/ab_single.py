@@ -2,7 +2,7 @@
 straggler: ~3.4M bound evals — thousands of pure inner iterations, the
 most sensitive on-chip probe of per-iteration cost changes).
 
-Usage (TPU):  python tools/ab_single.py key=val [key=val ...] -- key2=val2 ...
+Usage (GPU):  python tools/ab_single.py key=val [key=val ...] -- key2=val2 ...
 Each `--`-separated group is one config variant overlaid on the bench
 shape; each variant runs 1 warm + 3 measured walls.
 """

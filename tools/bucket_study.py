@@ -8,7 +8,7 @@ wasted volume, 2.7x on the eval-heavy pair 2).  Trajectories are
 padding-invariant, so per-pair results/evals must be IDENTICAL — this
 study checks that and measures the wall.
 
-Usage (TPU): python tools/bucket_study.py [--buckets 3] [--trimmed]
+Usage (GPU): python tools/bucket_study.py [--buckets 3] [--trimmed]
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def main():
     from goicp_tpu.bench.measure import (FUSED_CHUNK, FUSED_WIDTH,
                                          TRIM_FRACTION, _check_parity,
                                          _load_real_pair,
-                                         _normalized_synthetic, bench_shape,
+                                         normalized_synthetic, bench_shape,
                                          synthetic_pool,
                                          synthetic_pool_trimmed)
     from goicp_tpu.config import GoICPConfig
@@ -64,12 +64,12 @@ def main():
     if args.trimmed:
         cfg = dataclasses.replace(cfg, trimFraction=TRIM_FRACTION,
                                   trans_capacity=256)
-        raw = [_normalized_synthetic(e)
+        raw = [normalized_synthetic(e)
                for e in synthetic_pool_trimmed(args.n)]
     else:
         raw = [_load_real_pair("2x86_3", "1eq2_6", cfg),
                _load_real_pair("2ktd_1", "4imo_2", cfg)]
-        raw += [_normalized_synthetic(e)
+        raw += [normalized_synthetic(e)
                 for e in synthetic_pool(args.n - 2)]
 
     dims_list = [bucket_dims(m, len(d), len(m), cfg) for d, m, _, _ in raw]

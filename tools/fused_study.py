@@ -1,5 +1,5 @@
 """Measure the cross-pair fused stream engine on the 64-pair bench
-workload at several window widths (TPU).  Usage:
+workload at several window widths (GPU).  Usage:
     python tools/fused_study.py [width:chunk ...] [cfgkey=val ...]
 (default widths 8:512 16:512 4:512; cfg overrides apply to every combo
 on top of bench_shape — e.g. `icp_seeds=1` for the ICP-cost ablation)

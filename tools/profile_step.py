@@ -3,14 +3,15 @@
 Times each component of the sequential hot loop ON-CHIP by running it N
 times inside one jitted lax.fori_loop with a forced data dependency
 between iterations (so XLA cannot hoist loop-invariant work), then
-dividing the one-dispatch wall by N.  This answers VERDICT.md round-2
-items 3/4: where does the ~1 ms/inner-iteration go (kernel, chem, sort,
-ICP, loop overhead), and what blows up at wide shapes.
+dividing the one-dispatch wall by N: where does the per-inner-iteration
+time go (bound evaluation, chem, sort, ICP, loop overhead), and what blows
+up at wide shapes.
 
 Usage: python tools/profile_step.py [narrow|wide|both]
 """
 
 import dataclasses
+import os
 import sys
 import time
 
@@ -18,7 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def timed(name, fn, *args, n=50, **kwargs):
@@ -100,15 +102,6 @@ def main():
         timed(f"[{tag}] chem_corner_values (L,{Q})",
               lambda p, c: chem_corner_values(pair, cfgS, p, c),
               pts, corners)
-        import os
-        os.environ["GOICP_KERNEL"] = "xla"
-        timed(f"[{tag}] geom_bounds_fused XLA-gather",
-              lambda p, c, w, m: geometric_bounds_fused(pair, cfgS, p, c, w, m),
-              pts, centers, cwid, mrd)
-        timed(f"[{tag}] chem_corner XLA-gather",
-              lambda p, c: chem_corner_values(pair, cfgS, p, c),
-              pts, corners)
-        del os.environ["GOICP_KERNEL"]
 
         # the sort merge: (L, C+8P) argsort + takes
         all_lbs = jax.random.uniform(key, (L, C + 8 * P))
